@@ -6,7 +6,7 @@ cd "$(dirname "$0")/.."
 train_dir=data/train/train_100h
 save_dir=exp/gan_dnn
 
-python -m rsrgan_tpu.cli.train \
+python -m rsrgan_jax.cli.train \
   --trainer=gan_dnn --g_type=dnn \
   --data_dir=$train_dir \
   --tr_list_file=$train_dir/tr.list \

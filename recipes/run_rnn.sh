@@ -7,7 +7,7 @@ g_type=${1:-res_lstm_l}
 train_dir=data/train/train_100h
 save_dir=exp/rnn_$g_type
 
-python -m rsrgan_tpu.cli.train \
+python -m rsrgan_jax.cli.train \
   --trainer=rnn --g_type=$g_type \
   --data_dir=$train_dir \
   --tr_list_file=$train_dir/tr.list \

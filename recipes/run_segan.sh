@@ -8,7 +8,7 @@ cd "$(dirname "$0")/.."
 train_dir=data/train/train_100h
 save_dir=exp/segan
 
-python -m rsrgan_tpu.cli.train \
+python -m rsrgan_jax.cli.train \
   --trainer=segan --g_type=ae \
   --data_dir=$train_dir \
   --tr_list_file=$train_dir/tr.list \

@@ -3,7 +3,7 @@
 Exercises the full reference workflow (run_dnn.sh stages 0-3) on a tiny
 synthetic corpus with the frame DNN trainer (small enough for the CPU test
 environment). The flagship gan_rnn path is covered at API level in
-test_training.py and on real TPU by recipes/run_micro.sh.
+test_training.py and on the GPU by chip_smoke.py.
 """
 
 import os
@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from rsrgan_tpu.cli import prepare as prepare_cli
-from rsrgan_tpu.cli import train as train_cli
-from rsrgan_tpu.data import ScpReader, load_cmvn_npz
-from rsrgan_tpu.data.synthetic import make_synthetic_corpus
+from rsrgan_jax.cli import prepare as prepare_cli
+from rsrgan_jax.cli import train as train_cli
+from rsrgan_jax.data import ScpReader, load_cmvn_npz
+from rsrgan_jax.data.synthetic import make_synthetic_corpus
 
 
 @pytest.fixture(scope="module")
@@ -392,7 +392,7 @@ def test_reference_flag_aliases():
 def test_serve_streaming_matches_decode(corpus, tmp_path):
     """cli.serve streams each utterance in chunks with carried state; its
     feats must match the offline batch-1 decode of the same checkpoint."""
-    from rsrgan_tpu.cli import serve as serve_cli
+    from rsrgan_jax.cli import serve as serve_cli
 
     data_dir = corpus
     save_dir = str(tmp_path / "serve_exp")
@@ -506,7 +506,7 @@ def test_plot_cli(tmp_path):
     (generate_plots.py parity for the structured logs)."""
     import json
 
-    from rsrgan_tpu.cli import plot as plot_cli
+    from rsrgan_jax.cli import plot as plot_cli
 
     save_dir = str(tmp_path / "plot_exp")
     os.makedirs(save_dir)
@@ -530,9 +530,9 @@ def test_plot_cli(tmp_path):
 def test_decode_rejects_mismatched_flags(tmp_path):
     """--decode with a --trainer/--g_type that contradicts the checkpoint's
     .meta.json sidecar exits with a legible message instead of an opaque
-    flax "Missing field" error (or, for shape-identical res_lstm trees,
-    silent garbage)."""
-    from rsrgan_tpu.training import save_checkpoint
+    tree-mismatch error (or, for shape-identical res_lstm trees, silent
+    garbage)."""
+    from rsrgan_jax.training import save_checkpoint
 
     save_dir = str(tmp_path / "exp")
     save_checkpoint(save_dir, "RNNTrainer", {"p": np.zeros(1)}, 1,

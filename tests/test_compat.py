@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from rsrgan_tpu.cli import prepare as prepare_cli
-from rsrgan_tpu.data import ArkWriter, StoreWriter, UtteranceStore
-from rsrgan_tpu.data.store import build_store_from_scp, verify_store
-from rsrgan_tpu.data.tfrecords_compat import (convert_tfrecords_to_store,
+from rsrgan_jax.cli import prepare as prepare_cli
+from rsrgan_jax.data import ArkWriter, StoreWriter, UtteranceStore
+from rsrgan_jax.data.store import build_store_from_scp, verify_store
+from rsrgan_jax.data.tfrecords_compat import (convert_tfrecords_to_store,
                                               iter_tfrecord_payloads,
                                               parse_sequence_example)
 

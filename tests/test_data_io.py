@@ -6,14 +6,14 @@ import struct
 import numpy as np
 import pytest
 
-from rsrgan_tpu.data import (ArkWriter, Cmvn, CmvnAccumulator, FrameBatcher,
+from rsrgan_jax.data import (ArkWriter, Cmvn, CmvnAccumulator, FrameBatcher,
                              ScpReader, SequenceBatcher, StoreWriter,
                              UtteranceStore, build_store_from_scp,
                              cmvn_from_stats, convert_cmvn_to_numpy,
                              infer_batches, iter_ark, load_cmvn_npz,
                              read_ark_matrix, splice_frames, splice_frames_np,
                              write_kaldi_cmvn)
-from rsrgan_tpu.data.kaldi_ark import _decode_compressed
+from rsrgan_jax.data.kaldi_ark import _decode_compressed
 
 
 def _write_ark_set(tmp_path, rng, n=5, dim=7, name="feats"):
@@ -172,7 +172,7 @@ class TestArkCodec:
         """CM2 is a uniform 16-bit quantizer: error <= range/65535."""
         import io
 
-        from rsrgan_tpu.data.kaldi_ark import read_matrix, write_matrix
+        from rsrgan_jax.data.kaldi_ark import read_matrix, write_matrix
 
         m = rng.normal(scale=5.0, size=(6, 11)).astype(np.float32)
         buf = io.BytesIO()
@@ -186,7 +186,7 @@ class TestArkCodec:
     def test_text_ark_roundtrip(self, tmp_path, rng):
         """ArkWriter(text=True) emits copy-feats ark,t:-style archives
         readable via scp offsets AND sequentially; float32 exact."""
-        from rsrgan_tpu.data.kaldi_ark import iter_ark
+        from rsrgan_jax.data.kaldi_ark import iter_ark
 
         mats = {"a": rng.normal(scale=3.0, size=(5, 4)).astype(np.float32),
                 "b": rng.normal(size=(1, 7)).astype(np.float32),
@@ -209,7 +209,7 @@ class TestArkCodec:
         ark = tmp_path / "k.ark"
         ark.write_bytes(b"utt1  [\n  1.5 -2 3.25 \n  4 5 6 ]\n"
                         b"utt2  [\n  7 8 ]\n")
-        from rsrgan_tpu.data.kaldi_ark import iter_ark
+        from rsrgan_jax.data.kaldi_ark import iter_ark
 
         got = dict(iter_ark(str(ark)))
         np.testing.assert_array_equal(
@@ -222,7 +222,7 @@ class TestArkCodec:
             ArkWriter(str(tmp_path / "x.scp"), compress=True, text=True)
 
     def test_compressed_write_rejects_bad_input(self, tmp_path):
-        from rsrgan_tpu.data.kaldi_ark import _encode_compressed
+        from rsrgan_jax.data.kaldi_ark import _encode_compressed
         with np.testing.assert_raises(ValueError):
             _encode_compressed(np.array([[1.0, np.inf]]))
         with np.testing.assert_raises(ValueError):
@@ -414,7 +414,7 @@ class TestBatchers:
 
 class TestPrefetcherErrors:
     def test_producer_exception_propagates(self):
-        from rsrgan_tpu.data import ThreadedPrefetcher
+        from rsrgan_jax.data import ThreadedPrefetcher
 
         def bad_iter():
             yield 1
@@ -428,7 +428,7 @@ class TestPrefetcherErrors:
 
 class TestHostShardedBatches:
     def test_sequence_blocks_recombine_to_global_batch(self, tmp_path, rng):
-        from rsrgan_tpu.data import (HostShardedSequenceBatches,
+        from rsrgan_jax.data import (HostShardedSequenceBatches,
                                      SequenceBatcher, StoreWriter,
                                      UtteranceStore)
         store_path = str(tmp_path / "s.rtu")
@@ -462,7 +462,7 @@ class TestHostShardedBatches:
                 np.concatenate([b0.lengths, b1.lengths]), g.lengths)
 
     def test_frame_blocks_recombine(self, tmp_path, rng):
-        from rsrgan_tpu.data import (FrameBatcher, HostShardedFrameBatches,
+        from rsrgan_jax.data import (FrameBatcher, HostShardedFrameBatches,
                                      StoreWriter, UtteranceStore)
         store_path = str(tmp_path / "f.rtu")
         w = StoreWriter(store_path)
@@ -485,7 +485,7 @@ class TestHostShardedBatches:
             np.testing.assert_array_equal(np.concatenate([y0, y1]), gy)
 
     def test_indivisible_batch_rejected(self, tmp_path, rng):
-        from rsrgan_tpu.data import (HostShardedSequenceBatches,
+        from rsrgan_jax.data import (HostShardedSequenceBatches,
                                      SequenceBatcher, StoreWriter,
                                      UtteranceStore)
         store_path = str(tmp_path / "o.rtu")

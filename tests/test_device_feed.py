@@ -15,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rsrgan_tpu.data.dataset import (SequenceBatcher, bucket_id,
+from rsrgan_jax.data.dataset import (SequenceBatcher, bucket_id,
                                      padded_length)
-from rsrgan_tpu.data.device_feed import DeviceFeed, table_bytes
-from rsrgan_tpu.data.store import StoreWriter, UtteranceStore
-from rsrgan_tpu.models.discriminators import LstmDiscriminator
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.ops.gather import gather_sequences
-from rsrgan_tpu.training import GanTrainer, MseTrainer
+from rsrgan_jax.data.device_feed import DeviceFeed, table_bytes
+from rsrgan_jax.data.store import StoreWriter, UtteranceStore
+from rsrgan_jax.models.discriminators import LstmDiscriminator
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.ops.gather import gather_sequences
+from rsrgan_jax.training import GanTrainer, MseTrainer
 
 D_IN, D_OUT = 8, 8
 
@@ -233,12 +233,14 @@ class TestGatheredSteps:
 
 
 class TestCliDeviceFeed:
-    def test_on_off_equivalence(self, tmp_path):
+    def test_on_off_equivalence(self, tmp_path, monkeypatch):
         """cli/train with --device_feed=on must reproduce the host-fed
         run's loss trajectory (same seed, same corpus)."""
-        from rsrgan_tpu.cli import prepare as prepare_cli
-        from rsrgan_tpu.cli import train as train_cli
-        from rsrgan_tpu.data.synthetic import make_synthetic_corpus
+        # CPU devices report no memory statistics to size the tables by
+        monkeypatch.setenv("RSRGAN_FEED_HBM_BUDGET", "1e9")
+        from rsrgan_jax.cli import prepare as prepare_cli
+        from rsrgan_jax.cli import train as train_cli
+        from rsrgan_jax.data.synthetic import make_synthetic_corpus
 
         data_dir = str(tmp_path / "data")
         make_synthetic_corpus(data_dir, num_utts=10, input_dim=12,

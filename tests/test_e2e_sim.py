@@ -14,12 +14,12 @@ import os
 
 import numpy as np
 
-from rsrgan_tpu.cli import extract as extract_cli
-from rsrgan_tpu.cli import prepare as prepare_cli
-from rsrgan_tpu.cli import simulate as simulate_cli
-from rsrgan_tpu.cli import train as train_cli
-from rsrgan_tpu.data import ScpReader
-from rsrgan_tpu.sim import make_sim_assets
+from rsrgan_jax.cli import extract as extract_cli
+from rsrgan_jax.cli import prepare as prepare_cli
+from rsrgan_jax.cli import simulate as simulate_cli
+from rsrgan_jax.cli import train as train_cli
+from rsrgan_jax.data import ScpReader
+from rsrgan_jax.sim import make_sim_assets
 
 
 def test_wav_to_ark_full_chain(tmp_path):

@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-from rsrgan_tpu.data.kaldi_ark import ArkWriter
-from rsrgan_tpu.eval import (estoi, feature_mse, lsd_from_lps, seg_snr,
+from rsrgan_jax.data.kaldi_ark import ArkWriter
+from rsrgan_jax.eval import (estoi, feature_mse, lsd_from_lps, seg_snr,
                              si_snr, snr, stoi, variance_ratio)
-from rsrgan_tpu.features import (FrameOptions, SpectrogramOptions,
+from rsrgan_jax.features import (FrameOptions, SpectrogramOptions,
                                  compute_spectrogram_np)
-from rsrgan_tpu.features.resynth import (complex_spectrum, deemphasize,
+from rsrgan_jax.features.resynth import (complex_spectrum, deemphasize,
                                          overlap_add, resynthesize)
-from rsrgan_tpu.sim.wavio import read_wav, write_wav
+from rsrgan_jax.sim.wavio import read_wav, write_wav
 
 NODITHER = FrameOptions(dither=0.0)
 
@@ -74,7 +74,7 @@ class TestResynth:
         """WOLA of the actual windowed frames == the framed signal."""
         import jax.numpy as jnp
 
-        from rsrgan_tpu.features.frontend import (extract_frames,
+        from rsrgan_jax.features.frontend import (extract_frames,
                                                   feature_window)
 
         opts = FrameOptions(dither=0.0, preemph_coeff=0.0,
@@ -187,7 +187,7 @@ class TestStoi:
         Hand-derived bin ranges: band 0 edges 133.64/168.37 Hz -> bins
         [7, 9); band 7 edges 673.48/848.53 -> [34, 43); band 14 (top)
         edges 3394.11/4276.31 -> [174, 219)."""
-        from rsrgan_tpu.eval.stoi import _third_octave_matrix
+        from rsrgan_jax.eval.stoi import _third_octave_matrix
         obm = _third_octave_matrix()
         assert obm.shape == (15, 257)
         for band, lo, hi in ((0, 7, 9), (7, 34, 43), (14, 174, 219)):
@@ -203,7 +203,7 @@ class TestStoi:
         Pearson correlation of clean vs normalized-and-clipped degraded
         segments. With every band of one segment carrying x=(1,2,3) and
         y=(1,3,2), alpha=1, the clip is inactive, and r = 0.5 exactly."""
-        from rsrgan_tpu.eval.stoi import _estoi_score, _stoi_score
+        from rsrgan_jax.eval.stoi import _estoi_score, _stoi_score
         x = np.tile(np.array([1.0, 2.0, 3.0]), (1, 15, 1))
         y = np.tile(np.array([1.0, 3.0, 2.0]), (1, 15, 1))
         assert _stoi_score(x, y) == pytest.approx(0.5, abs=1e-9)
@@ -218,7 +218,7 @@ class TestStoi:
         third slot's bound is 0.66234 — the clip engages there and the
         score must equal the clipped Pearson r evaluated inline from the
         published formula."""
-        from rsrgan_tpu.eval.stoi import _stoi_score
+        from rsrgan_jax.eval.stoi import _stoi_score
         xv = np.array([10.0, 10.0, 0.1])
         yv = np.array([1.0, 1.0, 10.0])
         x = np.tile(xv, (1, 15, 1))
@@ -236,7 +236,7 @@ class TestStoi:
         normalized within each segment, so ESTOI is EXACTLY invariant to
         per-band positive gains — a defining property of the published
         construction, not an approximation."""
-        from rsrgan_tpu.eval.stoi import _estoi_score
+        from rsrgan_jax.eval.stoi import _estoi_score
         rng = np.random.default_rng(7)
         x = rng.uniform(0.1, 2.0, size=(3, 15, 30))
         gains = rng.uniform(0.2, 5.0, size=(1, 15, 1))
@@ -279,7 +279,7 @@ class TestStoi:
             stoi(y, x, fs=16000), abs=0.02)
 
     def test_stoi_both_matches_separate_calls(self):
-        from rsrgan_tpu.eval import stoi_both
+        from rsrgan_jax.eval import stoi_both
         x = speechlike(16000, seed=40)
         n = np.std(x) * np.random.default_rng(41).standard_normal(len(x))
         y = x + 0.7 * n
@@ -293,7 +293,7 @@ class TestStoi:
             stoi(x, x, fs=16000)
 
     def test_band_matrix_layout(self):
-        from rsrgan_tpu.eval.stoi import _third_octave_matrix
+        from rsrgan_jax.eval.stoi import _third_octave_matrix
         obm = _third_octave_matrix()
         assert obm.shape == (15, 257)
         assert (obm.sum(axis=1) > 0).all()          # every band non-empty
@@ -307,8 +307,8 @@ class TestCli:
     def test_resynth_then_score(self, tmp_path):
         """End-to-end: wavs + enhanced-LPS arks -> resynth CLI -> score
         CLI (wav + feats modes)."""
-        from rsrgan_tpu.cli import resynth as resynth_cli
-        from rsrgan_tpu.cli import score as score_cli
+        from rsrgan_jax.cli import resynth as resynth_cli
+        from rsrgan_jax.cli import score as score_cli
 
         clean_dir = tmp_path / "clean"
         noisy_dir = tmp_path / "noisy"
@@ -371,7 +371,7 @@ class TestCli:
         """--intelligibility=false drops stoi/estoi entirely; with only
         sub-STOI-length utterances the summary stays valid JSON (null,
         never the bare NaN token)."""
-        from rsrgan_tpu.cli import score as score_cli
+        from rsrgan_jax.cli import score as score_cli
 
         wav = tmp_path / "s.wav"
         write_wav(str(wav), speechlike(2000, seed=50))

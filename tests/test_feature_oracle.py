@@ -3,9 +3,9 @@
 Round-1 VERDICT weakness #2: feature parity had only self-referential
 evidence (two transcriptions by the same author in the same language, one
 self-generated fixture). These tests compare the JAX front-end against
-rsrgan_tpu/native/kaldi_feat_oracle.cc — a double-precision C++
+rsrgan_jax/native/kaldi_feat_oracle.cc — a double-precision C++
 implementation of the published Kaldi algorithm with its OWN radix-2 FFT,
-sharing no code with rsrgan_tpu/features/ — two ways:
+sharing no code with rsrgan_jax/features/ — two ways:
 
 * against the committed fixture tests/fixtures/oracle_feats.npz (works
   without a compiler; provenance embedded in the file), and
@@ -24,12 +24,12 @@ import subprocess
 import numpy as np
 import pytest
 
-from rsrgan_tpu.features import frontend
-from rsrgan_tpu.features import mfcc as mfcc_mod
+from rsrgan_jax.features import frontend
+from rsrgan_jax.features import mfcc as mfcc_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "oracle_feats.npz")
-ORACLE = os.path.join(REPO, "rsrgan_tpu", "native", "kaldi_feat_oracle")
+ORACLE = os.path.join(REPO, "rsrgan_jax", "native", "kaldi_feat_oracle")
 
 FRAME_OPTS = frontend.FrameOptions(dither=0.0)
 
@@ -155,8 +155,8 @@ def test_kaldi_golden_roundtrip_machinery(tmp_path):
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import kaldi_golden
 
-    from rsrgan_tpu.data.kaldi_ark import ArkWriter
-    from rsrgan_tpu.sim.wavio import read_wav
+    from rsrgan_jax.data.kaldi_ark import ArkWriter
+    from rsrgan_jax.sim.wavio import read_wav
 
     d = str(tmp_path / "golden")
     assert kaldi_golden.main(["export", "--out_dir", d]) == 0
@@ -192,7 +192,7 @@ class TestLiveOracle:
     @pytest.fixture(scope="class")
     def oracle(self):
         if not os.path.isfile(ORACLE):
-            build = os.path.join(REPO, "rsrgan_tpu", "native", "build.sh")
+            build = os.path.join(REPO, "rsrgan_jax", "native", "build.sh")
             try:
                 subprocess.run(["bash", build], check=True,
                                capture_output=True, timeout=180)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import scipy.fftpack
 
-from rsrgan_tpu.features import (FrameOptions, MelOptions, MfccOptions,
+from rsrgan_jax.features import (FrameOptions, MelOptions, MfccOptions,
                                  SpectrogramOptions, compute_mfcc_np,
                                  compute_spectrogram_np, dct_matrix,
                                  feature_window, lifter_coeffs, mel_banks,
@@ -166,7 +166,7 @@ class TestReviewRegressions:
     def test_snip_edges_false_reflection(self):
         """snip_edges=False centers frames and reflects at edges
         (feature-window.cc ExtractWindow semantics)."""
-        from rsrgan_tpu.features.frontend import extract_frames
+        from rsrgan_jax.features.frontend import extract_frames
         opts = FrameOptions(dither=0.0, snip_edges=False)
         wave = np.arange(1000, dtype=np.float32)
         frames = np.asarray(extract_frames(wave, opts))

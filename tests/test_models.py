@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rsrgan_tpu.models import (FRAME_G_TYPES, SEQUENCE_G_TYPES,
+from rsrgan_jax.models import (FRAME_G_TYPES, SEQUENCE_G_TYPES,
                                get_discriminator, get_generator)
-from rsrgan_tpu.ops.lstm import LstmCellP
+from rsrgan_jax.ops.lstm import LstmCellP
 
 B, T, D_IN, D_OUT = 2, 12, 9, 4
 
@@ -144,3 +144,55 @@ class TestDiscriminators:
         logits = np.asarray(disc.apply(variables, x))
         assert logits.shape == (8, 1)
         assert logits.min() >= -0.5 and logits.max() <= 1.5
+
+
+class TestParamTree:
+    """Every main-path model's parameter paths and shapes equal those of
+    the flax modules they replace (captured in
+    tests/fixtures/flax_param_tree.json), so checkpoints, the tensor-
+    parallel rules and serving's tree check keep their keys. At full width
+    the initial values also keep flax's distribution (std and max)."""
+
+    import json as _json
+    import os as _os
+
+    FIXTURE = _json.load(open(_os.path.join(
+        _os.path.dirname(__file__), "fixtures", "flax_param_tree.json")))
+
+    @staticmethod
+    def _build(key):
+        width, kind, name = (key.split("/") + [None])[:3]
+        din, dout, B_, T_ = (9, 4, 2, 6) if width == "small" else \
+            (257, 40, 1, 4)
+        if kind == "cell":
+            return LstmCellP(num_units=6, num_proj=5), (2, 3, 9)
+        if kind == "G":
+            return (get_generator(name, input_dim=din, output_dim=dout),
+                    (B_, T_, din))
+        width_in = dout + (din if name == "lstm_cond" else 0)
+        return get_discriminator("lstm"), (B_, T_, width_in)
+
+    @staticmethod
+    def _flat(params):
+        return {"/".join(str(k.key) for k in path): leaf
+                for path, leaf in
+                jax.tree_util.tree_flatten_with_path(params)[0]}
+
+    @pytest.mark.parametrize("key", sorted(FIXTURE))
+    def test_paths_shapes_and_init(self, key):
+        model, shape = self._build(key)
+        x = jnp.zeros(shape, jnp.float32)
+        params = self._flat(model.init(jax.random.PRNGKey(0), x)["params"])
+        want = self.FIXTURE[key]
+        assert sorted(params) == sorted(want)
+        for path, leaf in params.items():
+            assert list(leaf.shape) == want[path]["shape"], path
+            if "std" not in want[path]:
+                continue
+            a = np.asarray(leaf)
+            # sample std of a uniform draw has relative sd sqrt(0.2/n)
+            # per draw; two independent draws, 6 sigma
+            tol = 6 * np.sqrt(0.4 / a.size) * want[path]["std"]
+            assert abs(a.std() - want[path]["std"]) <= tol, path
+            assert abs(np.abs(a).max() - want[path]["absmax"]) <= \
+                0.02 * want[path]["absmax"] + 1e-12, path

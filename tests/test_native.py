@@ -6,27 +6,27 @@ import subprocess
 import numpy as np
 import pytest
 
-from rsrgan_tpu.data.kaldi_ark import _decode_compressed
+from rsrgan_jax.data.kaldi_ark import _decode_compressed
 
 try:
-    from rsrgan_tpu.native import ark_native
+    from rsrgan_jax.native import ark_native
 except Exception:
     ark_native = None
 
 if ark_native is None:  # build it (seconds) instead of skipping
     build = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "rsrgan_tpu", "native", "build.sh")
+        os.path.abspath(__file__))), "rsrgan_jax", "native", "build.sh")
     try:
         subprocess.run(["bash", build], check=True, capture_output=True,
                        timeout=120)
-        import rsrgan_tpu.native as _nat
+        import rsrgan_jax.native as _nat
         ark_native = _nat.reload_native()
     except Exception:
         ark_native = None
 
 pytestmark = pytest.mark.skipif(
     ark_native is None,
-    reason="libark_codec.so build failed (bash rsrgan_tpu/native/build.sh)")
+    reason="libark_codec.so build failed (bash rsrgan_jax/native/build.sh)")
 
 
 def test_decode_compressed_matches_numpy(rng):
@@ -51,7 +51,7 @@ def test_apply_cmvn_matches_numpy(rng):
 
 def test_encode_compressed_matches_numpy(rng):
     """Native encoder must be BIT-identical to the numpy encoder."""
-    import rsrgan_tpu.data.kaldi_ark as ka
+    import rsrgan_jax.data.kaldi_ark as ka
 
     mats = [
         rng.normal(scale=3.0, size=(120, 13)).astype(np.float32),

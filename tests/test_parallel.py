@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rsrgan_tpu.models.discriminators import LstmDiscriminator
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.parallel import make_mesh, replicate, shard_batch, shard_state
-from rsrgan_tpu.training import GanTrainer
+from rsrgan_jax.models.discriminators import LstmDiscriminator
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.parallel import make_mesh, replicate, shard_batch, shard_state
+from rsrgan_jax.training import GanTrainer
 
 D_IN, D_OUT, T = 8, 4, 10
 

@@ -11,9 +11,9 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from rsrgan_tpu.data.kaldi_ark import ArkWriter
-from rsrgan_tpu.features.frontend import FrameOptions, num_frames
-from rsrgan_tpu.sim.synthwav import (NUM_PHONES, PHONE_INVENTORY,
+from rsrgan_jax.data.kaldi_ark import ArkWriter
+from rsrgan_jax.features.frontend import FrameOptions, num_frames
+from rsrgan_jax.sim.synthwav import (NUM_PHONES, PHONE_INVENTORY,
                                      frame_alignment, make_phone_like_wav,
                                      make_sim_assets)
 

@@ -17,14 +17,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rsrgan_tpu.data.dataset import SequenceBatcher, bucket_id, padded_length
-from rsrgan_tpu.data.device_feed import (DeviceFeed, RotatingDeviceFeed,
+from rsrgan_jax.data.dataset import SequenceBatcher, bucket_id, padded_length
+from rsrgan_jax.data.device_feed import (DeviceFeed, RotatingDeviceFeed,
                                          pad_dim, table_bytes)
-from rsrgan_tpu.data.store import StoreView, StoreWriter, UtteranceStore
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.ops.gather import gather_sequences
-from rsrgan_tpu.parallel import make_mesh, shard_batch, replicate
-from rsrgan_tpu.training import MseTrainer
+from rsrgan_jax.data.store import StoreView, StoreWriter, UtteranceStore
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.ops.gather import gather_sequences
+from rsrgan_jax.parallel import make_mesh, shard_batch, replicate
+from rsrgan_jax.training import MseTrainer
 
 D_IN, D_OUT = 8, 6
 LENS = [30, 45, 33, 60, 41, 30, 52, 38, 47, 55, 36, 44,
@@ -273,8 +273,8 @@ class TestMeshFeed:
 
 
 def _build_corpus(tmp_path, num_utts=12, val_size=3):
-    from rsrgan_tpu.cli import prepare as prepare_cli
-    from rsrgan_tpu.data.synthetic import make_synthetic_corpus
+    from rsrgan_jax.cli import prepare as prepare_cli
+    from rsrgan_jax.data.synthetic import make_synthetic_corpus
 
     data_dir = str(tmp_path / "data")
     make_synthetic_corpus(data_dir, num_utts=num_utts, input_dim=12,
@@ -297,7 +297,7 @@ def _build_corpus(tmp_path, num_utts=12, val_size=3):
 
 
 def _run_train(data_dir, save_dir, extra):
-    from rsrgan_tpu.cli import train as train_cli
+    from rsrgan_jax.cli import train as train_cli
     rc = train_cli.main([
         "--trainer=rnn", "--g_type=lstm", f"--data_dir={data_dir}",
         f"--tr_list_file={os.path.join(data_dir, 'tr.list')}",
@@ -319,7 +319,7 @@ class TestCliRotation:
         """cli/train with a budget too small for residency must rotate
         (not fall back to the host feed) and finish with finite losses;
         block mode redefines iterations as residencies."""
-        from rsrgan_tpu.cli import train as train_cli
+        from rsrgan_jax.cli import train as train_cli
         data_dir = _build_corpus(tmp_path)
         # tr is 9 utts x ~45 frames x (128+128) cols ~= 420 kB f32 /
         # 210 kB bf16; cv ~3 utts ~= 140 kB / 70 kB. The budget must beat
@@ -368,13 +368,15 @@ class TestCliRotation:
             assert r["g_lr"] == pytest.approx(want), (prev_eff, r)
             prev_eff = r["eff_epoch"]
 
-    def test_dp_feed_equals_single_device_cli(self, tmp_path):
+    def test_dp_feed_equals_single_device_cli(self, tmp_path, monkeypatch):
         """--num_gpu=2 --batch_size=1 with the device feed must match
         --num_gpu=1 --batch_size=2 (same global batch, same plans).
 
         The CLI applies the reference's lr x num_gpu rule
         (make_hparams / exponential_decay multiply_jobs), so the DP run
         passes HALF the flag lr to land on the same effective rate."""
+        # CPU devices report no memory statistics to size the tables by
+        monkeypatch.setenv("RSRGAN_FEED_HBM_BUDGET", "1e9")
         data_dir = _build_corpus(tmp_path)
         rows_1 = _run_train(data_dir, str(tmp_path / "exp_1"), [
             "--batch_size=2", "--num_gpu=1", "--device_feed=on",

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rsrgan_tpu.models.segan import (SeganAEGenerator, SeganDiscriminator,
+from rsrgan_jax.models.segan import (SeganAEGenerator, SeganDiscriminator,
                                      SeganWaveGenerator, VirtualBatchNorm)
-from rsrgan_tpu.training.segan import SeganTrainer
+from rsrgan_jax.training.segan import SeganTrainer
 
 B, W_IN, W_OUT = 4, 64, 16
 ENC = (8, 16, 32)

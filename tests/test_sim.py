@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.signal
 
-from rsrgan_tpu.sim import (SimulationOptions, corrupt_utterance,
+from rsrgan_jax.sim import (SimulationOptions, corrupt_utterance,
                             extend_to_duration, fft_convolve, mix_at_snr,
                             parse_noise_list, parse_rir_list,
                             pick_item_with_probability, read_wav,
@@ -144,7 +144,7 @@ def _delta_rir(pos, length=64):
 
 def _two_room_setup(rng):
     """Two rooms with identity RIRs, one point-source noise, wav dict."""
-    from rsrgan_tpu.sim import Noise, Rir, Room
+    from rsrgan_jax.sim import Noise, Rir, Room
 
     wavs = {
         "A/r1.wav": _delta_rir(0), "A/r2.wav": _delta_rir(0),
@@ -173,7 +173,7 @@ class TestSnrEnergyBasis:
     (command semantics built at reverberate_bash.py:219-227,377)."""
 
     def test_early_reverb_energy_hand_computed(self, rng):
-        from rsrgan_tpu.sim import early_reverb_energy
+        from rsrgan_jax.sim import early_reverb_energy
 
         fs = 16000
         speech = rng.normal(size=4000).astype(np.float32) * 100
@@ -194,7 +194,7 @@ class TestSnrEnergyBasis:
         with a strong LATE tail inflates the wet power; the noise scale
         must come from the dry early energy, and the final mixture must
         be renormalized to the dry power."""
-        from rsrgan_tpu.sim import Noise, Rir, Room
+        from rsrgan_jax.sim import Noise, Rir, Room
 
         fs = 16000
         n = 4000
@@ -350,7 +350,7 @@ class TestPlacementSemantics:
             f"--noise-id n0 --noise-type isotropic --room-linkage A "
             f"{tmp_path}/noise.wav\n")
 
-        from rsrgan_tpu.cli import simulate
+        from rsrgan_jax.cli import simulate
         out_dir = str(tmp_path / "rvb")
         rc = simulate.main([f"--wav_scp={scp}",
                             f"--rir_list={tmp_path}/rir_list",
@@ -359,7 +359,7 @@ class TestPlacementSemantics:
         assert rc == 0
         assert os.path.isfile(os.path.join(out_dir, "u1.wav"))
 
-        from rsrgan_tpu.cli import extract
+        from rsrgan_jax.cli import extract
         feats_dir = str(tmp_path / "feats")
         rc = extract.main([f"--wav_scp={out_dir}/wav.scp",
                            "--feat_type=spectrogram",
@@ -370,7 +370,7 @@ class TestPlacementSemantics:
                            f"--output_dir={feats_dir}", "--name=labels",
                            "--dither=0", "--accumulate_cmvn"])
         assert rc == 0
-        from rsrgan_tpu.data import ScpReader, read_kaldi_cmvn
+        from rsrgan_jax.data import ScpReader, read_kaldi_cmvn
         lps = ScpReader(os.path.join(feats_dir, "inputs.scp"))
         mfcc = ScpReader(os.path.join(feats_dir, "labels.scp"))
         _, m0 = lps.read_index(0)
@@ -401,7 +401,7 @@ class TestPlacementSemantics:
         (tmp_path / "rir_list").write_text(
             f"--rir-id r0 --room-id A {tmp_path}/rir.wav\n")
 
-        from rsrgan_tpu.cli import simulate
+        from rsrgan_jax.cli import simulate
         out_dir = str(tmp_path / "rvb")
         args = [f"--wav_scp={scp}", f"--rir_list={tmp_path}/rir_list",
                 f"--output_dir={out_dir}"]
@@ -430,8 +430,8 @@ class TestExtractEdgeCases:
         """BatchedJitExtractor == JitExtractor per utterance (same dither
         keys, same features) across mixed lengths, partial tail batches,
         and both wire dtypes (int16-exact PCM vs float)."""
-        from rsrgan_tpu.cli.extract import BatchedJitExtractor, JitExtractor
-        from rsrgan_tpu.features import FrameOptions
+        from rsrgan_jax.cli.extract import BatchedJitExtractor, JitExtractor
+        from rsrgan_jax.features import FrameOptions
         opts = FrameOptions(dither=1.0)
         waves = []
         for i in range(7):
@@ -459,8 +459,8 @@ class TestExtractEdgeCases:
     def test_exact_frame_pad_multiple_with_tail(self, tmp_path, rng):
         """Wave whose frame count is an exact FRAME_PAD multiple but with
         trailing samples beyond the last frame (used to crash)."""
-        from rsrgan_tpu.cli.extract import FRAME_PAD, JitExtractor
-        from rsrgan_tpu.features import FrameOptions
+        from rsrgan_jax.cli.extract import FRAME_PAD, JitExtractor
+        from rsrgan_jax.features import FrameOptions
         opts = FrameOptions(dither=0.0)
         n_samples = opts.window_size + opts.window_shift * (FRAME_PAD - 1) \
             + 100  # 100 extra tail samples -> n_frames == FRAME_PAD

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsrgan_tpu.data.cmvn import Cmvn
-from rsrgan_tpu.features import FrameOptions
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.serving import StreamingEnhancer, StreamingWavEnhancer, \
+from rsrgan_jax.data.cmvn import Cmvn
+from rsrgan_jax.features import FrameOptions
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.serving import StreamingEnhancer, StreamingWavEnhancer, \
     StreamPool
 
 NODITHER = FrameOptions(dither=0.0)
@@ -242,10 +242,10 @@ def test_serve_cli_pooled_matches_single(tmp_path):
     single-stream path."""
     import os
 
-    from rsrgan_tpu.cli import serve as serve_cli
-    from rsrgan_tpu.models import get_discriminator, get_generator
-    from rsrgan_tpu.sim.wavio import read_wav, write_wav
-    from rsrgan_tpu.training import GanTrainer, save_checkpoint
+    from rsrgan_jax.cli import serve as serve_cli
+    from rsrgan_jax.models import get_discriminator, get_generator
+    from rsrgan_jax.sim.wavio import read_wav, write_wav
+    from rsrgan_jax.training import GanTrainer, save_checkpoint
 
     gen = get_generator("res_lstm_l", input_dim=BINS, output_dim=BINS)
     disc = get_discriminator("lstm")

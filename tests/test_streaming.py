@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rsrgan_tpu.models.recurrent import LstmGenerator, ResLstmGenerator
-from rsrgan_tpu.serving import StreamingEnhancer
+from rsrgan_jax.models.recurrent import LstmGenerator, ResLstmGenerator
+from rsrgan_jax.serving import StreamingEnhancer
 
 B, T, P, OUT = 2, 24, 7, 3
 
@@ -16,11 +16,10 @@ CHUNKS = ((0, 5), (5, 11), (16, 8))  # uneven chunk sizes
 
 def _make(variant, rng):
     if variant == "lstm":
-        gen = LstmGenerator(output_dim=OUT, cell_size=11, num_projection=5,
-                            lstm_impl="scan")
+        gen = LstmGenerator(output_dim=OUT, cell_size=11, num_projection=5)
     else:
         gen = ResLstmGenerator(output_dim=OUT, variant=variant[9:] or "l",
-                               cell_size=11, lstm_impl="scan")
+                               cell_size=11)
     x = jnp.asarray(rng.normal(size=(B, T, P)), jnp.float32)
     lens = jnp.full((B,), T, jnp.int32)
     variables = gen.init(jax.random.PRNGKey(0), x, lens)
@@ -68,7 +67,7 @@ def test_rejects_wrong_variant_tree(rng):
 
 
 def test_rejects_bnlstm(rng):
-    from rsrgan_tpu.models.recurrent import BnLstmGenerator
+    from rsrgan_jax.models.bnlstm import BnLstmGenerator
 
     gen = BnLstmGenerator(output_dim=OUT, cell_size=8, num_projection=5,
                           num_layers=2)

@@ -9,11 +9,10 @@ import numpy as np
 import optax
 import pytest
 
-from rsrgan_tpu.models.discriminators import (DnnDiscriminator,
-                                              LstmDiscriminator)
-from rsrgan_tpu.models.feedforward import DnnGenerator
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.training import (GanTrainer, ImprovementTracker, MseTrainer,
+from rsrgan_jax.models.discriminators import LstmDiscriminator
+from rsrgan_jax.models.feedforward import DnnDiscriminator, DnnGenerator
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.training import (GanTrainer, ImprovementTracker, MseTrainer,
                                  clip_by_norm_each, ema_update,
                                  exponential_decay, g_mse_loss,
                                  l2_loss_nonbias, load_checkpoint,
@@ -253,7 +252,7 @@ class TestGanTrainer:
                             np.asarray(y)], -1))
 
     def test_cli_plumbs_d_conditioned(self):
-        from rsrgan_tpu.cli.train import build_parser, build_trainer
+        from rsrgan_jax.cli.train import build_parser, build_trainer
         argv = ["--trainer=gan_rnn", "--g_type=res_lstm_l",
                 "--tr_list_file=x", "--cv_list_file=x", "--save_dir=x",
                 "--input_dim=8", "--output_dim=4"]
@@ -304,7 +303,7 @@ class TestMseTrainer:
     def test_checkpoint_meta_sidecar(self, rng, tmp_path):
         """save_checkpoint(meta=...) writes a readable .meta.json; absent
         meta reads back as None (pre-sidecar checkpoints)."""
-        from rsrgan_tpu.training import read_checkpoint_meta
+        from rsrgan_jax.training import read_checkpoint_meta
 
         gen = DnnGenerator(output_dim=D_OUT, units=8)
         trainer = MseTrainer(gen, output_dim=D_OUT, sequence_mode=False)
@@ -336,7 +335,7 @@ class TestMseTrainer:
         import os
         import time
 
-        from rsrgan_tpu.training import load_newest_state, \
+        from rsrgan_jax.training import load_newest_state, \
             save_periodic_snapshot
 
         gen = DnnGenerator(output_dim=D_OUT, units=8)
@@ -400,7 +399,7 @@ class TestBnLstmTrainer:
     def test_batch_stats_thread_through_train_step(self, rng):
         """bnlstm's mutable batch_stats must update inside the jitted
         train step and survive multi-step scans."""
-        from rsrgan_tpu.models.recurrent import BnLstmGenerator
+        from rsrgan_jax.models.bnlstm import BnLstmGenerator
         gen = BnLstmGenerator(output_dim=D_OUT, cell_size=8,
                               num_projection=5, num_layers=1)
         trainer = MseTrainer(gen, output_dim=D_OUT, max_grad_norm=15.0)
@@ -429,7 +428,7 @@ class TestBnLstmTrainer:
 class TestDropoutPaths:
     def test_gan_step_with_keep_prob_below_one(self, rng):
         """keep_prob < 1 must run (D dropout rng supplied) — used to crash
-        with flax InvalidRngError."""
+        for want of a dropout rng."""
         gen = ResLstmGenerator(output_dim=D_OUT, variant="l", cell_size=12,
                                keep_prob=0.8)
         disc = LstmDiscriminator(cell_size=8, num_projection=4,
@@ -448,14 +447,14 @@ class TestDropoutPaths:
 
 class TestTensorboardEvents:
     def test_crc32c_known_vectors(self):
-        from rsrgan_tpu.training.tensorboard import crc32c
+        from rsrgan_jax.training.tensorboard import crc32c
         assert crc32c(b"123456789") == 0xE3069283  # RFC 3720 check value
         assert crc32c(b"") == 0
         assert crc32c(b"\x00" * 32) == 0x8A9136AA
 
     def test_events_readable_by_tensorflow(self, tmp_path):
         """Our hand-encoded event files must parse with TF's own iterator."""
-        from rsrgan_tpu.training.tensorboard import EventFileWriter
+        from rsrgan_jax.training.tensorboard import EventFileWriter
         with EventFileWriter(str(tmp_path)) as w:
             w.add_scalars(3, {"g_loss": 1.5, "d_loss": -0.25})
             w.add_scalars(4, {"g_loss": 1.25})
@@ -477,8 +476,8 @@ def test_snapshot_invalidation_on_rollback(tmp_path):
     """A periodic snapshot of a later-REJECTED trajectory must not win
     over the accepted checkpoint after the trainer rolled back."""
     import jax.numpy as jnp2
-    from rsrgan_tpu.cli.train import PeriodicSnapshotter
-    from rsrgan_tpu.training import load_newest_state, \
+    from rsrgan_jax.cli.train import PeriodicSnapshotter
+    from rsrgan_jax.training import load_newest_state, \
         save_periodic_snapshot
 
     good = {"w": jnp2.ones((2,))}
@@ -494,3 +493,59 @@ def test_snapshot_invalidation_on_rollback(tmp_path):
     got, src = load_newest_state(str(tmp_path), "M", good)
     assert src == "checkpoint"
     np.testing.assert_array_equal(np.asarray(got["w"]), np.ones((2,)))
+
+
+class TestNpzCheckpoints:
+    """Checkpoints are .npz archives keyed by tree path."""
+
+    @pytest.mark.parametrize("kind", ["gan", "mse"])
+    def test_roundtrip_with_ema(self, rng, tmp_path, kind):
+        x, y, lengths = make_batch(rng)
+        if kind == "gan":
+            trainer = tiny_gan_trainer()
+            state = trainer.init_state(jax.random.PRNGKey(0), x, lengths)
+            state, _ = trainer.train_step(state, x, y, lengths, HP,
+                                          jax.random.PRNGKey(1))
+            nets = ("g", "d")
+        else:
+            gen = ResLstmGenerator(output_dim=D_OUT, variant="i",
+                                   cell_size=12)
+            trainer = MseTrainer(gen, output_dim=D_OUT, max_grad_norm=15.0)
+            state = trainer.init_state(jax.random.PRNGKey(0), x, lengths)
+            state, _ = trainer.train_step(state, x, y, lengths,
+                                          jnp.float32(1e-2),
+                                          jax.random.PRNGKey(1))
+            nets = ("net",)
+        state = jax.device_get(state)
+        path = save_checkpoint(str(tmp_path), "M", state, 1)
+        with np.load(path) as archive:
+            assert f"{nets[0]}/params/lstm_cell_1/kernel" in archive.files
+            assert "step" in archive.files
+        restored = load_checkpoint(str(tmp_path), "M", state)
+        assert type(restored) is type(state)
+        assert (jax.tree_util.tree_structure(restored)
+                == jax.tree_util.tree_structure(state))
+        for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        ema = load_checkpoint(str(tmp_path), "M", state, moving_average=True)
+        for net in nets:
+            got, want = getattr(ema, net).params, getattr(state, net).ema
+            for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            # the params really changed: EMA shadow != trained params
+            assert any(not np.array_equal(a, b) for a, b in zip(
+                jax.tree.leaves(getattr(state, net).params),
+                jax.tree.leaves(want)))
+
+    def test_mismatched_tree_names_the_leaf(self, rng, tmp_path):
+        x, _, lengths = make_batch(rng)
+        state = tiny_gan_trainer().init_state(jax.random.PRNGKey(0), x,
+                                              lengths)
+        save_checkpoint(str(tmp_path), "M", state, 1)
+        wider = tiny_gan_trainer(d_conditioned=True).init_state(
+            jax.random.PRNGKey(0), x, lengths)
+        with pytest.raises(ValueError, match="d/params/StackedLstm_0/cell_0"
+                                             "/kernel has shape"):
+            load_checkpoint(str(tmp_path), "M", wider)
+        with pytest.raises(ValueError, match="missing"):
+            load_checkpoint(str(tmp_path), "M", {"other": np.zeros(1)})

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rsrgan_tpu.data.cmvn import Cmvn
-from rsrgan_tpu.features import FrameOptions, SpectrogramOptions, \
+from rsrgan_jax.data.cmvn import Cmvn
+from rsrgan_jax.features import FrameOptions, SpectrogramOptions, \
     compute_spectrogram_np
-from rsrgan_tpu.features.resynth import resynthesize
-from rsrgan_tpu.models.recurrent import ResLstmGenerator
-from rsrgan_tpu.serving import StreamingEnhancer
-from rsrgan_tpu.serving.wav_stream import StreamingWavEnhancer
+from rsrgan_jax.features.resynth import resynthesize
+from rsrgan_jax.models.recurrent import ResLstmGenerator
+from rsrgan_jax.serving import StreamingEnhancer
+from rsrgan_jax.serving.wav_stream import StreamingWavEnhancer
 
 NODITHER = FrameOptions(dither=0.0)
 BINS = 257
@@ -139,10 +139,10 @@ def test_serve_cli_wav_mode(tmp_path):
     LPS->LPS flagship checkpoint and writes enhanced wavs + wav.scp."""
     import os
 
-    from rsrgan_tpu.cli import serve as serve_cli
-    from rsrgan_tpu.models import get_discriminator, get_generator
-    from rsrgan_tpu.sim.wavio import read_wav, write_wav
-    from rsrgan_tpu.training import GanTrainer, save_checkpoint
+    from rsrgan_jax.cli import serve as serve_cli
+    from rsrgan_jax.models import get_discriminator, get_generator
+    from rsrgan_jax.sim.wavio import read_wav, write_wav
+    from rsrgan_jax.training import GanTrainer, save_checkpoint
 
     gen = get_generator("res_lstm_l", input_dim=BINS, output_dim=BINS)
     disc = get_discriminator("lstm")
@@ -185,7 +185,7 @@ def test_serve_cli_wav_mode(tmp_path):
     # variant mismatch against the checkpoint's meta sidecar must refuse
     # loudly: res_lstm_l vs res_lstm_base trees are shape-identical, so
     # this is the only guard (training/checkpoints.py meta)
-    from rsrgan_tpu.training.checkpoints import checkpoint_meta_path
+    from rsrgan_jax.training.checkpoints import checkpoint_meta_path
     import json
     with open(checkpoint_meta_path(save_dir, "GAN_RNN"), "w") as f:
         json.dump({"g_type": "res_lstm_base"}, f)

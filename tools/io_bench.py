@@ -1,4 +1,4 @@
-"""Data-pipeline throughput bench (host side, no TPU).
+"""Data-pipeline throughput bench (host side, no accelerator).
 
 The reference's only perf harnesses were the I/O smoke tests that timed a
 pipeline scan (io_funcs/tfrecords_io_test.py:95-97, SURVEY.md section 4).
@@ -25,7 +25,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rsrgan_tpu.data import (ArkWriter, ScpReader, SequenceBatcher,
+from rsrgan_jax.data import (ArkWriter, ScpReader, SequenceBatcher,
                              ThreadedPrefetcher, UtteranceStore,
                              build_store_from_scp)
 
@@ -65,7 +65,7 @@ def main() -> None:
             pass
         report("ark-plain", total, time.perf_counter() - t0)
 
-        import rsrgan_tpu.data.kaldi_ark as ka
+        import rsrgan_jax.data.kaldi_ark as ka
 
         saved = ka._native
         try:

@@ -86,7 +86,7 @@ def make_waves():
     so a real Kaldi bundle pins the signals both oracles saw. int16
     quantization up front: Kaldi reads 16-bit PCM, so the golden
     comparison must run on exactly the quantized samples."""
-    from rsrgan_tpu.sim import make_speech_like_wav
+    from rsrgan_jax.sim import make_speech_like_wav
 
     rng = np.random.default_rng(WAVE_SEED)
     speech = make_speech_like_wav(rng, 1.0).astype(np.float64)
@@ -101,7 +101,7 @@ def make_waves():
 
 
 def cmd_export(args) -> int:
-    from rsrgan_tpu.sim.wavio import write_wav
+    from rsrgan_jax.sim.wavio import write_wav
 
     os.makedirs(args.out_dir, exist_ok=True)
     waves = make_waves()
@@ -126,8 +126,8 @@ def cmd_export(args) -> int:
 
 
 def cmd_pack(args) -> int:
-    from rsrgan_tpu.data.kaldi_ark import ScpReader
-    from rsrgan_tpu.sim.wavio import read_wav
+    from rsrgan_jax.data.kaldi_ark import ScpReader
+    from rsrgan_jax.sim.wavio import read_wav
 
     d = args.kaldi_dir
     bundle = {}

@@ -2,7 +2,7 @@
 
 Writes tests/fixtures/oracle_feats.npz: deterministic test waves plus the
 LPS/MFCC matrices produced for them by the INDEPENDENT C++ oracle
-(rsrgan_tpu/native/kaldi_feat_oracle.cc — double precision, its own FFT,
+(rsrgan_jax/native/kaldi_feat_oracle.cc — double precision, its own FFT,
 written from the published Kaldi algorithm, sharing no code with the JAX
 front-end). tests/test_feature_oracle.py checks the JAX front-end against
 both the committed fixture and, when g++ is available, a freshly built
@@ -25,11 +25,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-ORACLE = os.path.join(REPO, "rsrgan_tpu", "native", "kaldi_feat_oracle")
+ORACLE = os.path.join(REPO, "rsrgan_jax", "native", "kaldi_feat_oracle")
 
 PROVENANCE = (
     "Generated by tools/make_feature_fixtures.py running "
-    "rsrgan_tpu/native/kaldi_feat_oracle.cc (independent C++ oracle, "
+    "rsrgan_jax/native/kaldi_feat_oracle.cc (independent C++ oracle, "
     "double precision, own radix-2 FFT, implementing Kaldi "
     "feature-window.cc/feature-spectrogram.cc/mel-computations.cc/"
     "feature-mfcc.cc semantics; dither=0, povey window, preemph 0.97, "
@@ -51,10 +51,10 @@ def run_oracle(wave: np.ndarray, mode: str) -> np.ndarray:
 def main() -> None:
     if not os.path.isfile(ORACLE):
         subprocess.run(
-            ["bash", os.path.join(REPO, "rsrgan_tpu", "native", "build.sh")],
+            ["bash", os.path.join(REPO, "rsrgan_jax", "native", "build.sh")],
             check=True)
 
-    from rsrgan_tpu.sim import make_speech_like_wav
+    from rsrgan_jax.sim import make_speech_like_wav
 
     rng = np.random.default_rng(20260817)
     speech = make_speech_like_wav(rng, 1.0).astype(np.float64)
